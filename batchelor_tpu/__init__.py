@@ -1,12 +1,12 @@
-"""batchelor_tpu: TPU-native single-cell batch correction (MNN family).
+"""batchelor_tpu: single-cell batch correction (MNN family) in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
-Bioconductor batchelor package (reference mounted at /root/reference):
+Bioconductor batchelor package:
 cosine/multi-batch normalization, weighted multi-batch PCA (exact
 Gram-matrix eigendecomposition), fastMNN, classic mnnCorrect, clusterMNN,
 linear baselines, diagnostics, a typed dispatch API, an out-of-core CSR
 store with a C++ host runtime, per-merge-step checkpointing, and SPMD
-execution over TPU device meshes.
+execution over device meshes.
 
 Orientation convention: cells are rows everywhere (N x G), 0-based indices.
 """

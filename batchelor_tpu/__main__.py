@@ -1,10 +1,10 @@
 """Command-line interface: batch correction over on-disk CSR stores.
 
-The reference is a library with no CLI; production TPU deployments want a
+The reference is a library with no CLI; production deployments want a
 driveable entry point. Usage:
 
     python -m batchelor_tpu correct --input A_dir B_dir --output out_dir \
-        --method fastmnn --d 50 --k 20 [--subset-hvgs 2000] [--knn approx]
+        --method fastmnn --d 50 --k 20 [--subset-hvgs 2000] [--knn auto]
 
     python -m batchelor_tpu import-dense counts.npy store_dir
     python -m batchelor_tpu info store_dir
@@ -187,7 +187,7 @@ def main(argv=None):
     cor.add_argument("--sigma", type=float, default=0.1)
     cor.add_argument(
         "--knn", default="auto",
-        choices=["auto", "exact", "chunked", "bf16", "approx"],
+        choices=["auto", "exact", "chunked", "bf16"],
     )
     cor.add_argument("--svd", default="gram", choices=["gram", "randomized", "direct"])
     cor.add_argument("--subset-hvgs", type=int, default=0)
@@ -205,12 +205,15 @@ def main(argv=None):
     qc.add_argument("--k", type=int, default=20)
     qc.add_argument(
         "--knn", default="auto",
-        choices=["auto", "exact", "chunked", "bf16", "approx"],
+        choices=["auto", "exact", "chunked", "bf16"],
     )
     qc.add_argument("--block-rows", type=int, default=8192)
     qc.set_defaults(fn=_cmd_quick_correct)
 
     args = p.parse_args(argv)
+    from .utils.cache import use_compile_cache
+
+    use_compile_cache()
     args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """Classic mnnCorrect: gene-space MNN correction with Gaussian smoothing.
 
-TPU-native rebuild of mnnCorrect (reference R/mnnCorrect.R:125-538): MNN
+Rebuild of mnnCorrect (reference R/mnnCorrect.R:125-538): MNN
 pairs in (cosine-normalized) gene space, per-cell correction vectors from
 Gaussian-kernel smoothing of per-MNN averages, optional biological-subspace
 removal (svd_dim) and quantile-matching variance adjustment (var_adj).
@@ -21,7 +21,7 @@ from ..ops.cosine_norm import apply_cosine_norm, cosine_norm
 from ..ops.gaussian_kernel import smooth_gaussian_kernel
 from ..ops.mutual_nn import restricted_mnn
 from ..ops.shift_variance import adjust_shift_variance
-from ..ops.svd import get_bio_span_pair, subtract_bio
+from ..ops.svd import get_bio_span, subtract_bio
 from ..utils.batching import (
     check_batch_consistency,
     check_restrictions,
@@ -289,12 +289,8 @@ def mnn_correct(
         if svd_dim > 0:
             u1 = np.unique(s1)
             u2 = np.unique(s2)
-            # both sides' eighs batch into one host round trip per space
-            # (ops.svd.get_bio_span_pair; two fetches/step instead of four)
-            span1, span2 = get_bio_span_pair(
-                left.data[jnp.asarray(u1)], right.data[jnp.asarray(u2)],
-                svd_dim,
-            )
+            span1 = get_bio_span(left.data[jnp.asarray(u1)], svd_dim)
+            span2 = get_bio_span(right.data[jnp.asarray(u2)], svd_dim)
             corr_in = subtract_bio(corr_in, span1, span2)
             if not same_set:
                 lo_rows = (
@@ -305,9 +301,8 @@ def mnn_correct(
                     jnp.asarray(right_out[u2]) if host_out
                     else right_out[jnp.asarray(u2)]
                 )
-                ospan1, ospan2 = get_bio_span_pair(
-                    lo_rows, ro_rows, svd_dim, subset_row=subset_row
-                )
+                ospan1 = get_bio_span(lo_rows, svd_dim, subset_row=subset_row)
+                ospan2 = get_bio_span(ro_rows, svd_dim, subset_row=subset_row)
                 corr_out = subtract_bio(corr_out, ospan1, ospan2, subset_row=subset_row)
 
         if var_adj:

@@ -1,6 +1,6 @@
 """clusterMNN: cluster-level MNN correction with per-cell propagation.
 
-TPU-native rebuild of clusterMNN (reference R/clusterMNN.R:101-312):
+Rebuild of clusterMNN (reference R/clusterMNN.R:101-312):
 per-batch cluster centroids -> full-rank multi-batch PCA of centroids ->
 reducedMNN with k=1 on the centroids -> per-cell propagation via a
 variable-bandwidth Gaussian kernel -> meta-clusters as connected components
@@ -17,7 +17,7 @@ import numpy as np
 
 from ..ops.cosine_norm import apply_cosine_norm, cosine_norm
 from ..ops.knn import query_knn
-from ..ops.pca import MultiBatchPCAResult, multi_batch_pca
+from ..ops.pca import MultiBatchPCAResult, matmul_f32, multi_batch_pca
 from ..utils.batching import check_batch_consistency, check_restrictions, divide_into_batches
 from .fast_mnn import MNNResult, reduced_mnn
 
@@ -203,7 +203,7 @@ def _proj_block(block, l2, rotation, adj, valid):
     to the nearest centroid-projection is deferred (proj only)."""
     safe = jnp.maximum(jnp.asarray(1e-8, block.dtype), l2.astype(block.dtype))
     b = jnp.where(valid[:, None], block / safe[:, None], 0.0)
-    return b @ rotation - adj[None, :]
+    return matmul_f32(b, rotation) - adj[None, :]
 
 
 @jax.jit
@@ -226,7 +226,7 @@ def _propagate_block(proj, cent, delta, sigma):
         + jnp.sum(jnp.square(cent), axis=1)[None, :]
     )
     w = jax.nn.softmax(-d2 / jnp.square(sigma), axis=1)
-    return proj + w @ delta
+    return proj + matmul_f32(w, delta)
 
 
 def cluster_mnn_csr(
@@ -253,7 +253,7 @@ def cluster_mnn_csr(
     through the device via the sparse-transfer auto streamer. The
     reference runs this entry point on file-backed matrices through
     block-processed cosineNorm (R/cosineNorm.R:59-61) and streamed
-    centroids (R/clusterMNN.R:228-242); this is the TPU-native analog.
+    centroids (R/clusterMNN.R:228-242); this is the device-side analog.
 
     ``clusters``: list of per-batch label vectors, or an int K to
     auto-cluster each batch (k-means on its top-50 streamed PCs).
@@ -339,7 +339,7 @@ def cluster_mnn_csr(
         s_dev = jnp.asarray(sub)
         rotation = rotation[s_dev]
         centers_vec = centers_vec[s_dev]
-    adj = centers_vec @ rotation
+    adj = matmul_f32(centers_vec, rotation)
 
     corrected_blocks = []
     cluster_labels = []
@@ -474,8 +474,7 @@ def cluster_mnn(
     # R/clusterMNN.R:174-184): d = total#centroids - 1, exact.
     total_centroids = sum(c.shape[0] for c in centers)
     # "gram" picks the smaller-side cross-product: with few centroids this
-    # is a tiny (n_centroids x n_centroids) eigh. (jnp.linalg.svd compiles
-    # pathologically slowly on TPU, so avoid "direct" here.)
+    # is a tiny (n_centroids x n_centroids) eigh.
     pca = multi_batch_pca(
         centers,
         d=total_centroids - 1,
@@ -502,7 +501,7 @@ def cluster_mnn(
         s = jnp.asarray(np.asarray(subset_row))
         rotation = rotation[s]
         centers_vec = centers_vec[s]
-    adj = centers_vec @ rotation
+    adj = matmul_f32(centers_vec, rotation)
 
     corrected_blocks = []
     cluster_labels = []
@@ -511,7 +510,7 @@ def cluster_mnn(
     for i in range(nb):
         b = batches_n[i]
         sub = b if subset_row is None else b[:, jnp.asarray(np.asarray(subset_row))]
-        proj = sub @ rotation - adj[None, :]
+        proj = matmul_f32(sub, rotation) - adj[None, :]
         cent = pca.components[i]
         ncent = cent.shape[0]
         idx = jnp.arange(last, last + ncent)
@@ -525,14 +524,14 @@ def cluster_mnn(
         _, dist = query_knn(q, cent, 1)
         sigma = jnp.median(dist[:, 0])
         # softmax-weighted delta (reference .smooth_gaussian_from_centroids);
-        # distance matmul at HIGHEST (TPU default bf16 is too coarse here)
+        # distance matmul at HIGHEST (a TF32 or bf16 default is too coarse)
         d2 = (
             jnp.sum(jnp.square(proj), axis=1)[:, None]
             - 2 * jnp.matmul(proj, cent.T, precision=jax.lax.Precision.HIGHEST)
             + jnp.sum(jnp.square(cent), axis=1)[None, :]
         )
         w = jax.nn.softmax(-d2 / jnp.square(sigma), axis=1)
-        corrected_blocks.append(proj + w @ delta)
+        corrected_blocks.append(proj + matmul_f32(w, delta))
         cluster_labels.append(np.asarray(clusters[i]))
 
     corrected = jnp.concatenate(corrected_blocks, axis=0)

@@ -1,6 +1,6 @@
 """Diagnostics: mnnDeltaVariance and cluster-abundance checks.
 
-TPU-native rebuilds of the reference's diagnostic layer
+Rebuilds of the reference's diagnostic layer
 (R/mnnDeltaVariance.R:95-201, R/diagnostics-cluster.R:57-83).
 """
 from __future__ import annotations
@@ -282,8 +282,8 @@ def mnn_delta_variance_blocked(
 
     ``device``: optional ``jax.Device`` the chunk reductions are committed
     to (e.g. ``jax.local_devices(backend="cpu")[0]``). The reduction is
-    memory-bound, so when host→accelerator transfer is the bottleneck (a
-    tunneled/remote device) the host CPU backend is the faster substrate.
+    memory-bound, so when host→accelerator transfer is the bottleneck the
+    host CPU backend is the faster substrate.
     """
     from ..io.csr import CSRCells
 

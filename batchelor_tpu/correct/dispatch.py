@@ -1,6 +1,6 @@
 """Dispatch API: typed parameter objects + the batch_correct generic.
 
-TPU-native rebuild of the reference's S4 dispatch layer
+Rebuild of the reference's S4 dispatch layer
 (R/AllGenerics.R:4-5, R/AllClasses.R:5-25, R/BatchelorParam.R:42-76,
 R/batchCorrect.R:65-98): data-agnostic method parameters live in the PARAM
 object, data-specific arguments (batch, restrict, subset_row, correct_all)

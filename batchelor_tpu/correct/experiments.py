@@ -1,6 +1,6 @@
 """Dataset container + high-level pipelines.
 
-TPU-native analogs of the reference's SingleCellExperiment-level layer:
+Analogs of the reference's SingleCellExperiment-level layer:
   * SingleCellDataset — a minimal AnnData/SCE-like container (assays keyed
     by name, per-cell/per-gene metadata, reduced dims, alternative
     experiments);

@@ -1,6 +1,6 @@
 """fastMNN: PC-space mutual-nearest-neighbour batch correction.
 
-TPU-native rebuild of the reference's flagship algorithm
+Rebuild of the reference's flagship algorithm
 (R/fastMNN.R:283-658, R/reducedMNN.R:61-95). The merge-tree walk is
 host-side Python; every numeric step (kNN/MNN, averaging, orthogonalization,
 tricube apply) runs as jit-compiled XLA/Pallas work on device.

@@ -2,7 +2,7 @@
 
 The host-orchestrated engine in fast_mnn.py is the reference-parity path:
 it materializes pair lists per step for diagnostics. This module is the
-speed-of-light path: one jit-compiled function per merge that never syncs
+performance path: one jit-compiled function per merge that never syncs
 with the host — static shapes throughout, variable-size MNN pair sets
 carried as masks over the dense (N1 x k2) candidate array, segment
 reductions over full-size right-cell arrays.
@@ -55,10 +55,8 @@ def fused_merge_step(
 
     left: (N1, d) reference set; right: (N2, d) set being corrected.
     k1/k2: neighbours searched in left/right respectively. ``knn_method``
-    selects the kNN backend ("exact" | "chunked" | "bf16" | "approx"; see
-    ops.knn.query_knn) — the Pallas/approx backends are several times
-    faster at 100k+ cells, the TPU analog of the reference's Annoy/HNSW
-    BNPARAM options.
+    selects the kNN backend ("auto" | "exact" | "chunked" | "bf16"; see
+    ops.knn.query_knn), the analog of the reference's BNPARAM.
     """
     n1 = left.shape[0]
     n2 = right.shape[0]

@@ -1,6 +1,6 @@
 """Linear baselines: rescaleBatches, regressBatches, noCorrect.
 
-TPU-native rebuilds of the reference's linear correction methods
+Rebuilds of the reference's linear correction methods
 (R/rescaleBatches.R:63-182, R/regressBatches.R:93-158, R/noCorrect.R:45-76).
 Cells in rows; outputs are per-gene matrices in input cell order.
 """

@@ -3,7 +3,7 @@
 // The reference delegates its host-side heavy lifting to native code in
 // dependencies (BiocNeighbors' C++ kNN intersection, igraph's C components,
 // beachmat's C++ matrix access — SURVEY.md §2.2). This library is the
-// TPU-native build's equivalent: the device compute path is JAX/XLA/Pallas,
+// rebuild's equivalent: the device compute path is JAX/XLA/Pallas,
 // and the host runtime around it (pair-list intersection, graph components,
 // CSR block streaming for the data loader) is C++.
 //

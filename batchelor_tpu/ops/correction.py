@@ -1,6 +1,6 @@
 """fastMNN correction math: averaging, orthogonalization, tricube apply.
 
-TPU-native equivalents of the reference's correction helpers
+Equivalents of the reference's correction helpers
 (R/fastMNN.R:567-658) and the tricube kernel (R/utils_tricube.R:1-27).
 All functions take cells-in-rows arrays; pair lists are 0-based.
 
@@ -163,7 +163,7 @@ def batch_magnitude(correction: jnp.ndarray) -> jnp.ndarray:
 @jax.jit
 def _center_along(mat: jnp.ndarray, batch_vec: jnp.ndarray, restrict_mask: jnp.ndarray):
     vec = batch_vec / jnp.sqrt(jnp.sum(jnp.square(batch_vec)))
-    loc = mat @ vec
+    loc = jnp.matmul(mat, vec, precision=jax.lax.Precision.HIGHEST)
     w = restrict_mask.astype(mat.dtype)
     central = jnp.sum(loc * w) / jnp.sum(w)
     return mat + jnp.outer(central - loc, vec)
@@ -244,7 +244,8 @@ def _tricube_from_knn(
     vals: jnp.ndarray, indices: jnp.ndarray, distances: jnp.ndarray, ndist: float
 ):
     w = tricube_weights(distances, ndist)
-    return jnp.einsum("nk,nkd->nd", w, vals[indices])
+    return jnp.einsum("nk,nkd->nd", w, vals[indices],
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def tricube_average(
@@ -266,7 +267,8 @@ def tricube_average(
         rel = jnp.minimum(distances / bw[:, None], 1.0)
         tri = (1.0 - rel**3) ** 3
         w = tri / jnp.sum(tri, axis=1, keepdims=True)
-        return jnp.einsum("nk,nkd->nd", w, vals[indices])
+        return jnp.einsum("nk,nkd->nd", w, vals[indices],
+                          precision=jax.lax.Precision.HIGHEST)
     return _tricube_from_knn(vals, jnp.asarray(indices), jnp.asarray(distances), float(ndist))
 
 

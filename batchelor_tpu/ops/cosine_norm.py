@@ -1,6 +1,6 @@
 """Cosine (L2) normalization of per-cell expression vectors.
 
-TPU-native equivalent of cosineNorm (reference R/cosineNorm.R:53-82).
+Equivalent of cosineNorm (reference R/cosineNorm.R:53-82).
 Cells are rows here; the reference normalizes columns.
 """
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Gaussian-kernel smoothing of per-MNN correction vectors.
 
-TPU-native replacement for the reference's C++ kernel
+Replacement for the reference's C++ kernel
 (src/smooth_gaussian_kernel.cpp:10-118). The C++ manages log-space underflow
 with a per-entry running-max trick; here the whole computation is a
-log-softmax over a dense (n_mnn x n_cells) logit matrix — two MXU matmuls
+log-softmax over a dense (n_mnn x n_cells) logit matrix — two matmuls
 plus standard max-subtraction, numerically equivalent.
 
 Weight of MNN group i at cell c:
@@ -24,7 +24,7 @@ __all__ = ["smooth_gaussian_kernel"]
 
 @jax.jit
 def _sq_dists(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """(n_a, n_b) squared Euclidean distances via the MXU."""
+    """(n_a, n_b) squared Euclidean distances as a matmul."""
     acc = jnp.promote_types(a.dtype, jnp.float32)
     an = jnp.sum(jnp.square(a.astype(acc)), axis=1)
     bn = jnp.sum(jnp.square(b.astype(acc)), axis=1)

@@ -1,18 +1,19 @@
-"""Brute-force k-nearest-neighbour search on the MXU.
+"""Brute-force k-nearest-neighbour search as matmul + selection.
 
-TPU-native replacement for BiocNeighbors' C++ kNN (KMKNN et al.), used by the
+Replacement for BiocNeighbors' C++ kNN (KMKNN et al.), used by the
 reference for MNN detection (R/MNN_tree.R:129), tricube neighbour search
 (R/fastMNN.R:605) and clusterMNN sigmas (R/clusterMNN.R:276).
 
 Design: the pairwise squared-distance block ||q||^2 + ||x||^2 - 2 q x^T is a
-matmul (MXU work). Queries are processed in tiles; the data axis is streamed
+matmul. Queries are processed in tiles; the data axis is streamed
 in tiles with a running top-k merge (the flash-attention pattern applied to
 k-selection), so the full N_q x N_d distance matrix never materializes.
 Exact, deterministic (ties broken towards the lower data index), and
 mask-aware so padded rows can be excluded.
 
-A Pallas fused kernel for the distance+top-k tile lives in
-``knn_pallas.py``; this module is the portable XLA path and the dispatcher.
+The two-pass search (a fused sub-chunk-max pass, then an exact rescore)
+lives in ``knn_pallas.py``; this module is the tiled XLA path and the
+dispatcher.
 """
 from __future__ import annotations
 
@@ -25,9 +26,16 @@ from jax import lax
 
 __all__ = ["query_knn", "KNNResult"]
 
-# Rows per query tile / data tile. Multiples of the fp32 (8, 128) TPU tile.
+# Rows per query tile / data tile of the tiled search. On an H100 (400 W
+# limit) at 100k x 100k, d=50, k=20, four settings timed within 5% of each
+# other (the search is bound by its sort-based top_k); 2048-row tiles were
+# fastest but cost ~1.5 s of compile per shape (XLA constant-folds the
+# tile's index array), and "auto" sends only small problems here.
 _QUERY_TILE = 1024
 _DATA_TILE = 8192
+
+# "auto" uses the two-pass search only above this many scores (N_q * N_d).
+_AUTO_MIN_SCORES = 1 << 26
 
 
 def _pad_rows(x: jnp.ndarray, multiple: int, value=0.0) -> jnp.ndarray:
@@ -39,13 +47,12 @@ def _pad_rows(x: jnp.ndarray, multiple: int, value=0.0) -> jnp.ndarray:
     return jnp.pad(x, pad_width, constant_values=value)
 
 
-@functools.partial(jax.jit, static_argnames=("k", "pallas_topk"))
+@functools.partial(jax.jit, static_argnames=("k",))
 def _knn_tiled(
     query: jnp.ndarray,
     data: jnp.ndarray,
     k: int,
     data_valid: jnp.ndarray,
-    pallas_topk: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Exact kNN: tiled scores with running top-k merge.
 
@@ -56,7 +63,7 @@ def _knn_tiled(
     nq, d = query.shape
     nd = data.shape[0]
     # Accumulate in at least fp32; keep fp64 when inputs are fp64 (oracle
-    # parity on CPU). On TPU inputs are fp32/bf16 and this stays fp32.
+    # parity on CPU).
     acc_t = jnp.promote_types(query.dtype, jnp.float32)
 
     qn = jnp.sum(jnp.square(query.astype(acc_t)), axis=1, keepdims=True)
@@ -96,12 +103,7 @@ def _knn_tiled(
             all_i = jnp.concatenate(
                 [best_i, jnp.broadcast_to(cand_i[None, :], score.shape)], axis=1
             )
-            if pallas_topk:
-                from .topk_pallas import topk_rows
-
-                top_s, top_pos = topk_rows(all_s, k)
-            else:
-                top_s, top_pos = lax.top_k(all_s, k)
+            top_s, top_pos = lax.top_k(all_s, k)
             top_i = jnp.take_along_axis(all_i, top_pos, axis=1)
             return (top_s, top_i.astype(jnp.int32)), None
 
@@ -118,6 +120,27 @@ def _knn_tiled(
     idx = idx.reshape(-1, k)[:nq]
     sq = sq.reshape(-1, k)[:nq]
     return idx, jnp.maximum(sq, 0.0)
+
+
+def _auto_method(query, data, k: int) -> str:
+    """The "auto" choice: the two-pass "chunked" search on the GPU once the
+    problem has more than 2^26 scores and at least 256 * k data rows;
+    "exact" otherwise, and always on the CPU.
+
+    On an H100 (400 W limit) at 100k x 100k, d=50, k=20, "chunked" took
+    44 ms against 963 ms for "exact" (and 2.2 s against 91 s at 1M x 1M),
+    with the same neighbours. "bf16" was 18% faster again but missed ~1% of
+    them, so "auto" keeps fp32-grade selection. Below the threshold the
+    tiled path is index-stable and cheaper to compile. On the CPU the
+    two-pass search has no kernel to win with."""
+    from .knn_pallas import target_platform
+
+    big = query.shape[0] * data.shape[0] > _AUTO_MIN_SCORES
+    enough_chunks = data.shape[0] >= 256 * k
+    fp32 = jnp.promote_types(query.dtype, jnp.float32) == jnp.float32
+    if big and enough_chunks and fp32 and target_platform() == "gpu":
+        return "chunked"
+    return "exact"
 
 
 class KNNResult(tuple):
@@ -137,42 +160,6 @@ class KNNResult(tuple):
         return self[1]
 
 
-@functools.partial(jax.jit, static_argnames=("k",))
-def _knn_approx(query, data, k: int, data_valid):
-    """Approximate kNN via lax.approx_max_k (TPU-optimized partial reduce).
-
-    The reference equivalently offers approximate backends via BNPARAM
-    (AnnoyParam/HNSWParam); this is the TPU analog. Recall ~0.99 for
-    default settings.
-    """
-    acc_t = jnp.promote_types(query.dtype, jnp.float32)
-    dn = jnp.sum(jnp.square(data.astype(acc_t)), axis=1)
-    dn = jnp.where(data_valid, dn, jnp.inf)
-    qn = jnp.sum(jnp.square(query.astype(acc_t)), axis=1, keepdims=True)
-
-    nq, d = query.shape
-    tile = min(_QUERY_TILE * 8, -(-nq // 8) * 8)
-    qpad = _pad_rows(query, tile)
-    qn_pad = _pad_rows(qn, tile)
-    n_tiles = qpad.shape[0] // tile
-
-    def one(args):
-        qt, qnt = args
-        s = (
-            2.0 * jnp.dot(qt.astype(acc_t), data.astype(acc_t).T,
-                          preferred_element_type=acc_t,
-                          precision=lax.Precision.HIGHEST)
-            - dn[None, :]
-        )
-        vals, idx = lax.approx_max_k(s, k, recall_target=0.99,
-                                     aggregate_to_topk=True)
-        return idx, qnt - vals
-
-    idx, sq = lax.map(one, (qpad.reshape(n_tiles, tile, d),
-                            qn_pad.reshape(n_tiles, tile, 1)))
-    return idx.reshape(-1, k)[:nq], jnp.maximum(sq.reshape(-1, k)[:nq], 0.0)
-
-
 def query_knn(
     query: jnp.ndarray,
     data: jnp.ndarray,
@@ -184,60 +171,48 @@ def query_knn(
     method: str = "exact",
     exact_selection: bool = False,
     indices_only: bool = False,
+    mt_budget: Optional[int] = None,
 ) -> KNNResult:
     """For each row of ``query``, the ``k`` nearest rows of ``data``.
 
     Equivalent of BiocNeighbors::queryKNN with pluggable backends
     (reference BNPARAM, R/fastMNN.R:287):
       * "exact": tiled XLA scores + top_k (default; index-stable ties);
-      * "chunked": Pallas fused chunk-max kernel + exact rescore
-        (exact up to tie-breaking; large-N path, knn_pallas.py);
-      * "bf16": "chunked" with bf16 candidate selection (single-pass MXU
-        matmul, ~recall 0.996; distances exact fp32);
-      * "approx": lax.approx_max_k, recall ~0.99 (the Annoy/HNSW analog);
-      * "auto": "exact" for small problems (where it is index-stable and
-        compile-cheap), "bf16" once the score matrix is large enough for
-        the two-pass kernel to win (TPU only). bf16 selection is the
-        documented scale default (NOTES "exact-kNN conclusion"): measured
-        recall 1.0 at 98k^2 on cosine-scale data, ~12% faster than the
-        3-pass "chunked" selection, and the rescore that produces the
-        reported distances is exact fp32 either way — near-ties at bf16
-        score resolution may swap, exactly like the reference's KMKNN
-        vs Annoy/HNSW BNPARAM trade (R/fastMNN.R:287). Pass
-        method="chunked" for exact fp32-grade selection at scale.
+      * "chunked": two-pass search, a fused sub-chunk-max pass and an exact
+        rescore (exact up to tie-breaking; large-N path, knn_pallas.py);
+      * "bf16": "chunked" with bf16 candidate selection (one bf16 product,
+        recall slightly below 1 near ties; distances exact fp32);
+      * "auto": see ``_auto_method``.
     ``k`` must not exceed the number of valid data rows; ``n_data_valid``
-    or ``data_mask`` exclude padded/invalid data rows.
+    or ``data_mask`` exclude padded/invalid data rows. ``mt_budget`` bounds
+    the two-pass search's pass-1 buffer in bytes (see knn_pallas).
 
     Precision note: the "chunked" path's candidate selection carries
-    ~2^-21 error relative to SCORE MAGNITUDE (2|q.x|, ||x||^2), not to
+    ~2^-16 error relative to SCORE MAGNITUDE (2|q.x|, ||x||^2), not to
     neighbour distance gaps. Cosine-normalized / centered pipelines (every
     internal caller) keep magnitudes O(1), but standalone queries on
     raw-scale data with |x| >> neighbour gaps can mis-select genuinely
     distinct neighbours. Reported distances are always exact fp32;
-    ``exact_selection=True`` upgrades selection to a HIGHEST-equivalent
-    6-pass split (~1.6x pass-1 cost) for such inputs.
+    ``exact_selection=True`` selects with IEEE fp32 products for such
+    inputs.
     """
     if k <= 0:
         raise ValueError("k must be positive")
     query = jnp.asarray(query)
     data = jnp.asarray(data)
     if method == "auto":
-        big = query.shape[0] * data.shape[0] > (1 << 26)
-        enough_chunks = data.shape[0] >= 256 * k
-        method = (
-            "bf16"
-            if big and enough_chunks and jax.default_backend() == "tpu"
-            and jnp.promote_types(query.dtype, jnp.float32) == jnp.float32
-            else "exact"
-        )
+        method = _auto_method(query, data, k)
     if method in ("chunked", "bf16"):
-        from .knn_pallas import query_knn_tpu
+        from .knn_pallas import query_knn_two_pass
 
-        return query_knn_tpu(
+        return query_knn_two_pass(
             query, data, k, n_data_valid=n_data_valid, data_mask=data_mask,
             squared=squared, bf16=(method == "bf16"),
             exact_selection=exact_selection, indices_only=indices_only,
+            mt_budget=mt_budget,
         )
+    if method != "exact":
+        raise ValueError(f"unknown kNN method {method!r}")
     nd = data.shape[0]
     if data_mask is not None:
         valid = jnp.asarray(data_mask, dtype=bool)
@@ -245,23 +220,9 @@ def query_knn(
         valid = jnp.arange(nd) < n_data_valid
     else:
         valid = jnp.ones((nd,), dtype=bool)
-    if method == "approx":
-        idx, sq = _knn_approx(query, data, k, valid)
-    elif method == "exact":
-        # Pallas k-extraction replaces lax.top_k on TPU (10x faster,
-        # identical selection incl. tie order); CPU/f64 keeps lax.top_k.
-        use_pallas = (
-            jax.default_backend() == "tpu"
-            and jnp.promote_types(query.dtype, jnp.float32) == jnp.float32
-            and k <= 64
-        )
-        idx, sq = _knn_tiled(query, data, k, valid, pallas_topk=use_pallas)
-    else:
-        raise ValueError(f"unknown kNN method {method!r}")
+    idx, sq = _knn_tiled(query, data, k, valid)
     if indices_only:
-        # membership-only callers (the MNN searches) never read distances;
-        # skipping them saves the (nq, k) fp32 outputs — 2.56 GB tiled at
-        # a 5M-row search (k pads to 128 lanes on TPU)
+        # membership-only callers (the MNN searches) never read distances
         return KNNResult(idx, None)
     dist = sq if squared else jnp.sqrt(sq)
     return KNNResult(idx, dist)

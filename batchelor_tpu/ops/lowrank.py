@@ -1,6 +1,6 @@
 """Lazy low-rank reconstruction operator.
 
-TPU-native analog of BiocSingular::LowRankMatrix as used by the reference's
+Analog of BiocSingular::LowRankMatrix as used by the reference's
 ``reconstructed`` assay (reference R/convertPCsToSCE.R:50-72): the per-gene
 corrected values ``rotation @ corrected.T`` (G x N) are never materialized;
 blocks are computed on demand and matmuls fuse through the factors, like

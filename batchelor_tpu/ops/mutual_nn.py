@@ -1,6 +1,6 @@
 """Mutual nearest-neighbour detection between two batches.
 
-TPU-native replacement for BiocNeighbors::findMutualNN; the in-repo
+Replacement for BiocNeighbors::findMutualNN; the in-repo
 authoritative statement of the algorithm is the reference's vestigial kernel
 src/find_mutual_nns.cpp:7-41 (sort + binary-search membership test). Here the
 membership test is a vectorized gather+compare on device.
@@ -72,12 +72,8 @@ def membership_rows(l2r: jnp.ndarray, r2l: jnp.ndarray, row_ids: jnp.ndarray,
     the (N1, k2, k1) gather never materializes at once (jit-traceable;
     used inside the fused/distributed merge steps at large N).
 
-    The lax.map carrier and per-block outputs are TRANSPOSED — (nblk, k2,
-    chunk) with the 128-aligned chunk dim minor — because an (nblk, chunk,
-    k2) int32 stack tiles k2 (20) up to 128 lanes and crosses the TPU
-    runtime's 2^31-byte buffer limit at N1 >= ~4.2M rows, kernel-faulting
-    the loop's dynamic-slice (same fault class as the kNN piece scan,
-    ops/knn_pallas.py GROUP_ROWS)."""
+    The lax.map carrier and per-block outputs are laid out (nblk, k2,
+    chunk)."""
     nsl, k2 = l2r.shape
     chunk = min(chunk, max(nsl, 1))
     nblk = -(-nsl // chunk)
@@ -124,8 +120,7 @@ def _compact_pairs(mask: jnp.ndarray, l2r: jnp.ndarray, cap: int):
     nonzero() walks the mask row-major, which IS the reference emission
     order (left cell, then distance rank — src/find_mutual_nns.cpp:30-38).
     Only 3*cap scalars ever cross to the host, instead of the full (N1, k2)
-    mask + index matrices (10 MB at 100k cells vs ~100 KB): on a tunneled /
-    PCIe-attached device the fetch, not the test, is the cost."""
+    mask + index matrices (10 MB at 100k cells vs ~100 KB)."""
     rows, cols = jnp.nonzero(mask, size=cap, fill_value=mask.shape[0])
     safe_rows = jnp.minimum(rows, mask.shape[0] - 1)
     second = l2r[safe_rows, cols]

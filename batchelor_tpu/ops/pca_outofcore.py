@@ -25,7 +25,6 @@ from .pca import (
     MultiBatchPCAResult,
     _randomized_psd_eigh,
     construct_weight_vector,
-    full_eigh,
 )
 
 __all__ = ["multi_batch_pca_csr"]
@@ -133,7 +132,7 @@ def multi_batch_pca_csr(
     if eig_method == "randomized" or (eig_method == "auto" and g > 1024):
         evals, v = _randomized_psd_eigh(gram, int(min(d, g)))
     else:
-        ev, evec = full_eigh(gram)
+        ev, evec = jnp.linalg.eigh(gram)
         evals = ev[::-1][: int(min(d, g))]
         v = evec[:, ::-1][:, : int(min(d, g))]
 

@@ -1,6 +1,6 @@
 """Lazy linear-model residuals (ResidualMatrix equivalent).
 
-TPU-native analog of the ResidualMatrix used by regressBatches
+Analog of the ResidualMatrix used by regressBatches
 (reference R/regressBatches.R:148). The residual operator
 R = X - D (D'D)^-1 D' X is kept in factored form so it can be fused into
 downstream matmuls (e.g. the PCA cross-product) without materializing a

@@ -1,9 +1,9 @@
 """Quantile-matching variance adjustment of correction vectors.
 
-TPU-native replacement for the reference's C++ kernel
+Replacement for the reference's C++ kernel
 (src/adjust_shift_variance.cpp:29-164), the anti-"kissing" scaling of
 classic mnnCorrect. The per-cell loop with inner O(N) passes becomes a set
-of dense MXU matmuls over (N2 x N2) and (N2 x N1) blocks plus a sorted
+of dense matmuls over (N2 x N2) and (N2 x N1) blocks plus a sorted
 log-space cumulative sum (associative scan).
 
 For each cell c of batch 2 with correction vector v_c:
@@ -29,13 +29,12 @@ __all__ = ["adjust_shift_variance"]
 
 _CHUNK = 1024  # query cells per block (memory ~ chunk x (N1 + N2))
 
-# MEASURED (NOTES round-5, v5e, G=100, N=100k..400k): the radix descent
-# and the per-chunk (C, N1) lax.sort time IDENTICALLY (3.7/14.6/22.6/53.8 s
-# at 100k/200k/250k/400k for both) — the kernel is bound by the O(N^2 G)
-# weight-matrix construction, not the quantile search. Since speed ties,
-# the exact sort is the default at every N; the radix path (resolution
-# 2^-24 of the row range) stays available via quantile_method="radix" for
-# regimes where a sort-free pass matters.
+# The exact sort is the default at every N: on the system's former
+# accelerator the radix descent and the per-chunk (C, N1) lax.sort timed
+# the same, the kernel being bound by the O(N^2 G) weight-matrix
+# construction rather than the quantile search. Neither has been timed on
+# the H100. The radix path (resolution 2^-24 of the row range) stays
+# available via quantile_method="radix".
 _RADIX_BITS = 24  # quantization resolution (2^-24 of the per-row range)
 
 
@@ -250,10 +249,9 @@ def adjust_shift_variance(
     the no-op).
 
     ``quantile_method``: "sort" (default; exact sorted-cumsum crossing) or
-    "radix" (sort-free 24-bit descent, _ref_quantile_radix). Measured
-    speed-identical on v5e at N=100k-400k, G=100 — the kernel is bound by
-    its O(N^2 G) weight construction — so the exact sort is the default
-    at every N. In fp32 the radix partial sums round differently from the
+    "radix" (sort-free 24-bit descent, _ref_quantile_radix). The kernel is
+    bound by its O(N^2 G) weight construction, so the exact sort is the
+    default at every N. In fp32 the radix partial sums round differently from the
     sorted cumsum, so knife-edge ECDF crossings may flip by one element
     (exact in fp64).
     """

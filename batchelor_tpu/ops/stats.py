@@ -1,6 +1,6 @@
 """Per-gene variance modelling and HVG selection.
 
-TPU-native stand-ins for the scran machinery that quickCorrect leans on
+Stand-ins for the scran machinery that quickCorrect leans on
 (reference R/quickCorrect.R:88-114): modelGeneVar -> combineVar ->
 getTopHVGs. Means/variances are device reductions; the mean-variance trend
 reuses the loess-style smoother from diagnostics.fit_trend_var.

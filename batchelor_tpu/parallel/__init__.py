@@ -1,5 +1,5 @@
 """SPMD scale-out layer: device meshes, sharded merge steps, ring
-collectives, and multi-host bootstrap — the TPU-native replacement for the
+collectives, and multi-host bootstrap — the replacement for the
 reference's BiocParallel/DelayedArray concurrency (SURVEY.md §2.3, §5)."""
 
 from .mesh import (

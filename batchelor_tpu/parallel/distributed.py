@@ -1,12 +1,12 @@
 """Distributed fastMNN: cells sharded over the mesh, explicit collectives.
 
 SPMD design (SURVEY.md §2.3/§5): each device holds a row shard of both
-batches; the opposing set is all-gathered over ICI for the cross-batch
+batches; the opposing set is all-gathered over the mesh for the cross-batch
 distance tiles (d <= ~50, so an (N x d) gather is cheap); MNN membership,
 segment-averaged corrections, projection means and variance reductions are
 psums; small state (the averaged-correction table, batch vectors) is
 replicated. All collectives are emitted inside shard_map on a declared
-mesh — the TPU analog of the reference's "injected, never ambient"
+mesh — the analog of the reference's "injected, never ambient"
 parallelism discipline (reference tests/testthat/setup.R:1-13).
 """
 from __future__ import annotations
@@ -23,6 +23,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 shard_map = jax.shard_map
 
 from ..ops.merge_math import merge_step_body
+from ..ops.pca import matmul_f32
 from .mesh import CELLS_AXIS, cells_sharding, make_cells_mesh, pad_to_multiple
 
 __all__ = ["distributed_merge_step", "distributed_multi_batch_pca", "DistributedMergeOutput"]
@@ -129,17 +130,15 @@ def _weighted_gram(xs_shards, masks, weights, counts, centers):
     gram = jnp.zeros((g, g), xs_shards[0].dtype)
     for x, m, w, c in zip(xs_shards, masks, weights, counts):
         xc = jnp.where(m[:, None], x - centers[None, :], 0.0)
-        gram = gram + (xc.T @ xc) * (w / c)
+        gram = gram + matmul_f32(xc.T, xc) * (w / c)
     return _psum(gram)
 
 
 def _gram_local(xs_shards, masks, left_shards, weights, get_variance: bool):
     """Per-device body, phase 1: weighted grand-mean centering + Gram psum
     (plus the optional leftover cross-Gram and total-variance scalar). The
-    eigendecomposition does NOT happen here — it runs between the two
-    shard_maps through ops.pca.full_eigh, which solves the host-sized
-    G x G problem on the host on TPU backends (a device eigh inside the
-    SPMD program costs minutes of compile per shape; NOTES round-4)."""
+    eigendecomposition does NOT happen here — it runs once on the
+    replicated G x G Gram between the two shard_maps."""
     dt = xs_shards[0].dtype
     centers, counts = _weighted_stats(xs_shards, masks, weights)
     gram = _weighted_gram(xs_shards, masks, weights, counts, centers)
@@ -151,7 +150,7 @@ def _gram_local(xs_shards, masks, left_shards, weights, get_variance: bool):
         for lx, x, m, w, c in zip(left_shards, xs_shards, masks, weights, counts):
             lc = jnp.where(m[:, None], lx - left_centers[None, :], 0.0)
             xc = jnp.where(m[:, None], x - centers[None, :], 0.0)
-            cross = cross + (lc.T @ xc) * (w / c)
+            cross = cross + matmul_f32(lc.T, xc) * (w / c)
         outs += [_psum(cross), left_centers]
     if get_variance:
         total = jnp.zeros((), dt)
@@ -167,7 +166,7 @@ def _project_local(xs_shards, masks, v, centers):
     onto the replicated rotation (the distributed form of
     R/multiBatchPCA.R:236-239)."""
     return tuple(
-        jnp.where(m[:, None], x - centers[None, :], 0.0) @ v
+        matmul_f32(jnp.where(m[:, None], x - centers[None, :], 0.0), v)
         for x, m in zip(xs_shards, masks)
     )
 
@@ -185,7 +184,7 @@ def _leftover_rows(cross, v, ev):
     """leftover_u = (cross @ v) / ev  (u = scaled v / s; leftover_u =
     left_scaled^T u / s = cross v / s^2; R/multiBatchPCA.R:396-414)."""
     safe = jnp.maximum(ev, jnp.finfo(cross.dtype).tiny)
-    return (cross @ v.astype(cross.dtype)) / safe[None, :]
+    return matmul_f32(cross, v.astype(cross.dtype)) / safe[None, :]
 
 
 def _passthrough_local(xs_shards, masks, weights, get_variance: bool):
@@ -344,10 +343,8 @@ def distributed_multi_batch_pca(
         pos = 4
     total = out[pos] if get_variance else None
 
-    # host-sized eigendecomposition between the two SPMD phases
-    from ..ops.pca import full_eigh
-
-    evals, evecs = full_eigh(gram)
+    # one eigendecomposition of the replicated Gram between the SPMD phases
+    evals, evecs = jnp.linalg.eigh(gram)
     v, s, ev = _eigh_post(evals, evecs, d_eff)
 
     def proj_body(*pargs):

@@ -1,6 +1,6 @@
 """Device mesh construction and sharding helpers.
 
-The TPU-native replacement for the reference's BiocParallel worker-pool
+The replacement for the reference's BiocParallel worker-pool
 plumbing (reference R/fastMNN.R:301-304, SURVEY.md L10): concurrency is a
 declared 1-D "cells" mesh; per-cell arrays are sharded over it, small state
 (rotations, batch vectors, pair masks) is replicated, and cross-device
@@ -20,19 +20,14 @@ CELLS_AXIS = "cells"
 
 
 def make_cells_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
-    """1-D mesh with a single ``cells`` axis over the first n devices.
-
-    If the default platform has too few devices, falls back to the CPU
-    backend (virtual devices via xla_force_host_platform_device_count) —
-    querying a named backend does not disturb the default platform.
+    """1-D mesh with a single ``cells`` axis over the first n devices of
+    the default platform (or of ``devices``). Asking for more devices than
+    there are raises; nothing falls back to another platform. The cards of
+    one host reach each other all to all, so the mesh follows the algorithm
+    alone: one axis over the cells.
     """
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and n_devices > len(devices):
-            try:
-                devices = jax.devices("cpu")
-            except RuntimeError:
-                pass
     if n_devices is not None:
         if n_devices > len(devices):
             raise ValueError(

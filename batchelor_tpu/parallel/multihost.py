@@ -1,12 +1,13 @@
-"""Multi-host initialization and DCN x ICI mesh construction.
+"""Multi-host initialization and host x local-device mesh construction.
 
 The communication backend replacing the reference's BiocParallel worker
 pools (SURVEY.md §5 "Distributed communication backend"): jax.distributed
 for process bootstrap, then a hybrid mesh whose outer axis spans hosts
-(DCN) and inner axis spans each host's local chips (ICI). For the 1-D
-cell-sharding layout used by this framework the two axes are flattened into
-the single "cells" axis — collectives between co-located chips ride ICI and
-only the host-boundary segments cross DCN.
+(the network between machines) and inner axis spans each host's local
+devices (their own interconnect). For the 1-D cell-sharding layout used by
+this framework the two axes are flattened into the single "cells" axis —
+collectives between co-located devices stay on the host's interconnect and
+only the host-boundary segments cross the network.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ def initialize_multihost(
     initialization_timeout: Optional[float] = None,
 ) -> None:
     """jax.distributed.initialize wrapper; no-op when single-process or when
-    already initialized. On TPU pods with the standard environment all
-    arguments are auto-detected.
+    already initialized. On clusters whose environment JAX recognises, all
+    arguments are auto-detected; elsewhere pass them.
 
     Failure policy: only the fully-auto-detected case (no arguments) may
     silently degrade to single-process — that is the ordinary laptop/single
@@ -60,7 +61,7 @@ def initialize_multihost(
 
 def make_multihost_cells_mesh() -> Mesh:
     """1-D cells mesh over all global devices, ordered host-major so that
-    contiguous shard ranges stay on one host (ICI-local) and the
-    host-boundary collectives are the only DCN traffic."""
+    contiguous shard ranges stay on one host and the host-boundary
+    collectives are the only cross-machine traffic."""
     devices = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     return Mesh(np.array(devices), (CELLS_AXIS,))

@@ -1,6 +1,6 @@
 """Batch plumbing: splitting, reordering and index bookkeeping.
 
-TPU-native rebuild of the reference's batch plumbing layer
+Rebuild of the reference's batch plumbing layer
 (reference: R/divideIntoBatches.R:36-100, R/utils_reorder.R:1-36,
 R/utils_subset.R:2-18, R/checkInputs.R:42-120, R/intersectRows.R:53-80).
 

@@ -1,15 +1,11 @@
-"""Measured per-merge-step collective volumes on the 8-device mesh.
-
-BASELINE claims >=85% multi-host scaling efficiency; multi-host hardware
-does not exist in this environment, so the honest substitute is MEASURED
-collective bytes per compiled merge step (counted from the optimized HLO of
-the real SPMD program on the virtual 8-device mesh) plus an explicit
-DCN-bandwidth model extrapolating to v5e-64 (NOTES.md table).
+"""Per-merge-step collective volumes of the sharded merge, counted from HLO.
 
 Counts every cross-replica op (all-gather, all-reduce, reduce-scatter,
 collective-permute, all-to-all) in the compiled module of one
-distributed_fast_mnn step — gather and ring memory modes — and prints a
-JSON summary with a v5e-64 projection at the 10M-cell scale.
+distributed_fast_mnn step — gather and ring memory modes — on a virtual
+8-device CPU mesh, and prints the bytes as a JSON summary. These are
+counts from the program, not timings: how long the collectives take over
+NVLink is only measured on the cards.
 
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python benchmarks/collective_volume.py [N1] [N2] [d] [k]
@@ -110,25 +106,6 @@ def main():
             "per_op": {k_: v for k_, v in stats.items() if v["count"]},
             "total_bytes": total,
             "bytes_per_cell": round(total / max(n1 + n2, 1), 1),
-        }
-    # v5e-64 projection at the 10M-cell final step (5M x 5M), 64 devices:
-    # the dominant term in gather mode is the all-gather of the opposing
-    # batch, O(N2 * d * 4) bytes per device per kNN pass — independent of
-    # device count — and the segment-sum all-reduces, O(N2 * d * 4).
-    # Collective bytes/device scale with global N, not N/device, so the
-    # model below reports the DCN time for the measured bytes-per-cell at
-    # the 10M final step against per-host DCN (v5e: 4 hosts x 16 chips,
-    # ~200 Gbps DCN per host => 25 GB/s, ICI 3D torus ~ 400 GB/s
-    # bidirectional per chip).
-    for memory in ("gather", "ring"):
-        bpc = report[memory]["bytes_per_cell"]
-        final_step_bytes = bpc * 10_000_000
-        report[memory]["projection_v5e64"] = {
-            "final_step_collective_gb": round(final_step_bytes / 2**30, 2),
-            "ici_seconds_at_100GBps": round(final_step_bytes / 1e11, 3),
-            "dcn_seconds_at_25GBps_per_host": round(
-                final_step_bytes / 4 / 25e9, 3
-            ),
         }
     print(json.dumps(report, indent=1))
 

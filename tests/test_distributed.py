@@ -1,6 +1,6 @@
 """Sharding-equivalence tests on the virtual 8-device CPU mesh.
 
-The TPU analog of the reference's distribution-discipline fixture
+The analog of the reference's distribution-discipline fixture
 (SURVEY.md §4.1/§4.6): 1-device and 8-device meshes must produce identical
 MNN pair counts and corrected coordinates; all collectives occur on the
 declared mesh only.
@@ -122,3 +122,14 @@ def test_uneven_padding(rng, mesh8):
     assert out.right.shape == (77, 8)
     ref = fused_merge_step(jnp.asarray(b1), jnp.asarray(b2), 20, 20)
     assert np.allclose(np.asarray(out.right), np.asarray(ref.right), atol=1e-8)
+
+
+def test_make_cells_mesh_refuses_too_many_devices():
+    """Asking for more devices than the platform has raises; there is no
+    fallback to another platform's devices."""
+    n = len(jax.devices())
+    assert make_cells_mesh(n).devices.size == n
+    with pytest.raises(ValueError, match="requested"):
+        make_cells_mesh(n + 1)
+    with pytest.raises(ValueError, match="requested"):
+        make_cells_mesh(3, devices=jax.devices()[:2])

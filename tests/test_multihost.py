@@ -39,7 +39,7 @@ def test_multihost_mesh_spans_all_devices_host_major():
     assert mesh.axis_names == (CELLS_AXIS,)
     assert mesh.devices.size == len(jax.devices()) == 8
     order = [(d.process_index, d.id) for d in mesh.devices.flat]
-    assert order == sorted(order)  # host-major: ICI-contiguous shards
+    assert order == sorted(order)  # host-major: each host's shards contiguous
 
 
 def test_multihost_mesh_drives_distributed_fast_mnn(rng):

@@ -129,3 +129,30 @@ def test_tree_weights():
     assert np.allclose(w, [0.25] * 4)
     with pytest.raises(ValueError):
         tree_weights([0, [1, 1]], 3)
+
+
+def test_compile_cache_follows_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the helper returns it and leaves
+    JAX's own setting alone."""
+    import jax
+
+    from batchelor_tpu.utils import cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cache.use_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_repo(monkeypatch):
+    """Unset, the cache is the fixed <repo>/.jax_cache."""
+    import os
+
+    import jax
+
+    from batchelor_tpu.utils import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.use_compile_cache() == os.path.join(repo, ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == cache.REPO_CACHE_DIR
